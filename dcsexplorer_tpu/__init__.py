@@ -1,13 +1,14 @@
-"""dcsexplorer_tpu — a TPU-native (JAX/XLA/Pallas) framework for the DCS audio format.
+"""dcsexplorer_tpu — a JAX/XLA framework for the DCS audio format.
 
-A ground-up rebuild of the capabilities of mjrgh/DCSExplorer, designed TPU-first:
+A ground-up rebuild of the capabilities of mjrgh/DCSExplorer that decodes and
+encodes on an accelerator (an NVIDIA GPU; the CPU backend for tests):
 
 - ``rom``      — host-side ROM model: zip loading, U2..U9 identification, catalog,
                  checksums, HW/OS/game detection (reference: DCSDecoder/DCSDecoder.cpp).
 - ``format``   — the DCS format's constant tables (Huffman codebooks, band tables,
                  scale factors, IFFT coefficient tables) as NumPy data.
 - ``refdec``   — the bit-exact host scalar reference decoder (NumPy oracle).
-- ``ops``      — JAX/Pallas device kernels: fixed-point 1.15 math, batched bitstream
+- ``ops``      — JAX device kernels: fixed-point 1.15 math, batched bitstream
                  parse, dequant/scale, 256-point integer IFFT, overlap-add, mixer.
 - ``models``   — assembled decoder pipelines (single stream, batched catalog sweep).
 - ``vm``       — track byte-code VM, command queue / data-port protocol, boot state

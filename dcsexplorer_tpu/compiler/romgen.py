@@ -42,7 +42,7 @@ class TrackSpec:
 @dataclass
 class RomSpec:
     os_version: int = OS94
-    signature: str = "dcsexplorer-tpu synthetic ROM  01/01/26"
+    signature: str = "dcsexplorer synthetic ROM  01/01/26"
     chip_size: int = 512 * 1024
     max_chips: int = 8
     num_channels: int = 6

@@ -1,12 +1,12 @@
 """Encoder analysis transform: the forward counterpart of the decoder IFFT.
 
-TPU-first design: instead of porting the reference's scalar split-radix DFT
+Design: instead of porting the reference's scalar split-radix DFT
 (reference: DCSEncoder.cpp:1019-1500), we exploit that the decoder's inverse
 transform (ops/transform.py, float-idealized without rounding/saturation) is a
 LINEAR map D from frame-buffer coefficients to the 256 time-domain samples.
 The encoder's analysis transform is its least-squares inverse, precomputed
 once as a 256×255 matrix — so encoding a whole stream's frames is a single
-batched matmul on the MXU.
+batched matmul.
 
 Coefficient-space convention (matching the decoder's first-sample fixup,
 DCSDecoderNative.cpp:2254-2257): slot 1 is forced to zero by the decoder and
@@ -141,7 +141,7 @@ def analyze_frames(time_frames, algorithm="pinv"):
     is production, DFTAlgorithmNew is the independent clean derivation kept
     for comparison):
 
-    - "pinv" (default, production): the MXU least-squares inverse — one
+    - "pinv" (default, production): the least-squares inverse — one
       batched matmul.
     - "butterfly": the decoder transform's passes inverted in closed form
       (forward butterfly recursion + inverse twiddle folds).  Exact on D's

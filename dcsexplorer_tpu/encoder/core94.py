@@ -13,8 +13,8 @@ semantics: DCSEncoder.cpp:743-956 band cutoff / bit allocation,
 Since round 4 the analysis itself is integer-canonical too: the window-
 folded analysis matrix is quantized once to int16 and the coefficients are
 DEFINED as an exact integer expression over raw int16 frames
-(encoder.analyze_frames_canonical — float64 BLAS on host, int8-plane MXU
-matmuls on device, bit-identical), so there is no non-integer seam left
+(encoder.analyze_frames_canonical — float64 BLAS on host, int8-plane
+integer matmuls on device, bit-identical), so there is no non-integer seam left
 anywhere in the encode path.
 
 Code selection: the band-type code is the smallest candidate whose width
@@ -72,7 +72,7 @@ def rdiv(a, s):
     integer < 2^24), so one fixup round makes q the exact floor — which
     makes the formula portable bit-for-bit to the device (device94 uses
     the identical f32 formula).  Hardware integer division would be exact
-    too but is an order of magnitude slower on both numpy and TPU."""
+    too but is an order of magnitude slower in numpy."""
     a = np.asarray(a)
     x = 2.0 * np.abs(a, dtype=np.float32) + np.asarray(s, np.float32)
     y = np.float32(2.0) * np.asarray(s, dtype=np.float32)

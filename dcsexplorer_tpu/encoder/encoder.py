@@ -2,7 +2,7 @@
 
 From-scratch design driven by the decode grammar (which this framework
 implements bit-exactly): PCM → 240-sample frames with 16-sample overlap →
-MXU-batched analysis transform (encoder/analysis.py) → per-band scale
+batched matmul analysis transform (encoder/analysis.py) → per-band scale
 selection and quantization → per-frame band-type selection (differential,
 Huffman-coded) → codebook/raw bit packing.
 
@@ -13,7 +13,7 @@ input, resampling to 31,250 Hz, and the full stream-format search — both
 major types (0 = direct bit widths, 1 = per-band translation tables with
 scale-code pre-adjustments) × both subtypes (0/3), keeping the smallest
 encoding (reference: DCSEncoder.cpp:784-853).  Every emitted format decodes
-bit-exactly in this framework's scalar and TPU decoders AND in the compiled
+bit-exactly in this framework's scalar and device decoders AND in the compiled
 reference decoder (tests/test_encoder.py).
 """
 
@@ -45,7 +45,7 @@ class CompressionParams:
     target_bit_rate: int = 128000
     minimum_dynamic_range: float = 10.0 / 32768.0
     maximum_quantization_error: float = 10.0 / 32768.0
-    # forward transform: "pinv" (production MXU matmul), "butterfly" (the
+    # forward transform: "pinv" (production matmul), "butterfly" (the
     # independent inverse-passes derivation), or "dual" (cross-check both)
     # — counterpart of the reference's DFTAlgorithmOrig/New pair
     # (DCSEncoder.cpp:1019-1035)
@@ -222,10 +222,10 @@ _WF = _encoder_window()
 #   ci = floor((frames_i16 @ Fq + 2^20) / 2^21)
 # over RAW int16 frames.  Every quantity is an exact integer (|x| ≤ 2^15,
 # |Fq| ≤ 2^14, 256-term dots ≤ 2^37 < 2^53), so the host (float64 BLAS)
-# and the device (int8-plane MXU matmuls, encoder/device94.analyze_device)
-# compute bit-identical ci — which is what lets the on-chip encoder emit
-# byte-identical streams from PCM without shipping coefficients over the
-# link.  Quantizing the matrix costs nothing audible (SNR unchanged to
+# and the device (int8-plane integer matmuls, encoder/device94
+# _analyze_device) compute bit-identical ci — which is what lets the
+# on-device encoder emit byte-identical streams from PCM without uploading
+# coefficients.  Quantizing the matrix costs nothing audible (SNR unchanged to
 # 0.01 dB, stream sizes ±1 byte on the bench corpus).
 
 FQ_SHIFT = 21

@@ -15,10 +15,8 @@ models/flatsweep.py, and runs all three families as one sweep:
   per-frame window gather addresses one buffer and heterogeneous stream
   lengths cost no padding.
 - ``flat93_pipeline_packed`` / ``flat93a_pipeline_packed``: the device half
-  from TRANSFER-COMPACT inputs.  The host↔device link is the binding term
-  of a cold mixed sweep (measured: the fused catalog at the v1 wire spent
-  ~750 ms of its ~1040 ms iteration in upload), so the wire carries ONLY
-  what the device cannot derive:
+  from TRANSFER-COMPACT inputs.  A cold mixed sweep uploads the whole
+  catalogue, so the wire carries ONLY what the device cannot derive:
 
     93b/frame: sid u16 + frame_word i32 + mix u16 + vol u8 + 16 × (packed
     kind·width u8 + frame-relative bit offset u16 + chain state 2×u16) ≈
@@ -37,7 +35,7 @@ models/flatsweep.py, and runs all three families as one sweep:
   batches returning one checksum (single dispatch), for callers that want
   the whole mixed catalog in one program.  The bench instead dispatches
   per family so each family's device work overlaps the NEXT family's
-  upload on the serial link (bench.bench_catalog_e2e).
+  upload (bench.bench_catalog_e2e).
 
 The overlap-add carry resets at stream starts (``overlap_resolve93_flat``),
 so the flat axis is bit-exact with per-stream decode (tests/test_catalog_e2e).

@@ -1,13 +1,19 @@
 """Native host runtime: C++ stream indexer / dense symbol decoder (ctypes).
 
-Builds ``build/libdcsnative.so`` on demand from ``src/dcs_native.cpp`` with a
-generated table header.  Python threads fan the (GIL-releasing) C calls out
-across cores for batch workloads.  Falls back to None if no compiler is
-available; callers then use the pure-Python prescan.
+Builds ``build/libdcsnative-<key>.so`` on demand from ``src/*.cpp`` with a
+generated table header.  The key hashes the sources, the compiler's version
+and the host CPU, so a library built with ``-march=native`` on one machine
+is never loaded on another: a copied checkout rebuilds on first use.
+Python threads fan the (GIL-releasing) C calls out across cores for batch
+workloads.  Falls back to None if no compiler is available (``build_error``
+says why); callers then use the pure-Python prescan.
 """
 
 import ctypes as C
+import fcntl
+import hashlib
 import os
+import platform
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
@@ -15,46 +21,84 @@ import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _BUILD = os.path.join(_REPO, "build")
-_LIB_PATH = os.path.join(_BUILD, "libdcsnative.so")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+_SOURCES = ("dcs_native.cpp", "flac.cpp", "mp3.cpp", "vorbis.cpp",
+            "adsp2105.cpp", "encoder94.cpp", "encoder93.cpp", "tracer.cpp")
 _lib = None
 _tried = False
+build_error = None
+
+
+def _host_cpu():
+    """The host CPU's model and feature flags (what -march=native sees)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            keep = [ln for ln in f if ln.startswith(("model name", "flags"))]
+        return "".join(sorted(set(keep)))
+    except OSError:
+        return platform.processor()
+
+
+def lib_path():
+    """The library's path for these sources, this compiler and this CPU."""
+    h = hashlib.sha256()
+    for name in _SOURCES + ("mp3_tables.h", "vorbis_tables.h"):
+        path = os.path.join(_SRC, name)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                h.update(f.read())
+    with open(os.path.join(os.path.dirname(_SRC), "gen_tables.py"), "rb") as f:
+        h.update(f.read())
+    try:
+        h.update(subprocess.run(["g++", "--version"], capture_output=True,
+                                check=True).stdout)
+    except (OSError, subprocess.CalledProcessError):
+        h.update(b"no g++")
+    h.update((platform.machine() + _host_cpu()).encode())
+    return os.path.join(_BUILD, f"libdcsnative-{h.hexdigest()[:16]}.so")
+
+
+def _build(path):
+    from . import gen_tables
+    hdr = os.path.join(_BUILD, "native_inc", "dcs_tables.h")
+    gen_tables.emit(hdr)
+    # built under a private name and renamed into place, so no process
+    # ever finds a half-written library at the final path
+    tmp = f"{path}.{os.getpid()}.tmp"
+    # -march=native vectorizes the encoder search loops (~15% on the
+    # enc94 bench); -ffp-contract=off keeps strict per-op IEEE double
+    # semantics so the float twins (encoder93's error sums) stay
+    # byte-identical to numpy even where the ISA has FMA.  Fall back to
+    # plain -O3 if the host compiler rejects the arch.
+    base = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
+            f"-I{os.path.dirname(hdr)}",
+            *[os.path.join(_SRC, n) for n in _SOURCES], "-o", tmp]
+    try:
+        subprocess.run(base[:2] + ["-march=native", "-ffp-contract=off"]
+                       + base[2:], check=True, capture_output=True, text=True)
+    except subprocess.CalledProcessError:
+        subprocess.run(base, check=True, capture_output=True, text=True)
+    os.replace(tmp, path)
 
 
 def get_lib():
-    global _lib, _tried
+    global _lib, _tried, build_error
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    src_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
-    srcs = [os.path.join(src_dir, f)
-            for f in ("dcs_native.cpp", "flac.cpp", "mp3.cpp",
-                      "vorbis.cpp", "adsp2105.cpp", "encoder94.cpp",
-                      "encoder93.cpp", "tracer.cpp")]
-    hdr = os.path.join(_BUILD, "native_inc", "dcs_tables.h")
+    path = lib_path()
     try:
-        newest = max(os.path.getmtime(s) for s in srcs)
-        if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < newest):
-            from . import gen_tables
-            gen_tables.emit(hdr)
+        if not os.path.exists(path):
             os.makedirs(_BUILD, exist_ok=True)
-            # -march=native vectorizes the encoder search loops (~15% on
-            # the enc94 bench); -ffp-contract=off keeps strict per-op IEEE
-            # double semantics so the float twins (encoder93's error sums)
-            # stay byte-identical to numpy even where the ISA has FMA.
-            # Fall back to plain -O3 if the host compiler rejects the arch.
-            base = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
-                    f"-I{os.path.dirname(hdr)}", *srcs, "-o", _LIB_PATH]
-            try:
-                subprocess.run(
-                    base[:2] + ["-march=native", "-ffp-contract=off"]
-                    + base[2:],
-                    check=True, capture_output=True, text=True)
-            except subprocess.CalledProcessError:
-                subprocess.run(base, check=True, capture_output=True,
-                               text=True)
-        lib = C.CDLL(_LIB_PATH)
-    except (subprocess.CalledProcessError, OSError):
+            # one process builds; the others (test workers, spawned
+            # encoder workers) wait for it instead of compiling too
+            with open(path + ".lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not os.path.exists(path):
+                    _build(path)
+        lib = C.CDLL(path)
+    except (subprocess.CalledProcessError, OSError) as e:
+        build_error = f"{type(e).__name__}: {getattr(e, 'stderr', '') or e}"
         return None
     lib.dcs94_frame_count.restype = C.c_int
     lib.dcs94_frame_count.argtypes = [C.c_char_p, C.c_int, C.c_int]

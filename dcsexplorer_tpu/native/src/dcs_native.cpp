@@ -4,7 +4,7 @@
 // This is the framework's C++ counterpart to the reference's native C++
 // runtime layer: the one truly serial part of the codec (walking the
 // variable-length bitstream) runs here at memory speed, producing the
-// per-frame index and dense per-slot sample/control arrays that the TPU
+// per-frame index and dense per-slot sample/control arrays that the device
 // kernels consume (see ops/prescan.py and ops/band_decode.py for the
 // documented semantics; format anchors: reference DCSDecoderNative.cpp:
 // 1679-2261).  Written from scratch against dcsexplorer_tpu's own Python

@@ -65,7 +65,7 @@ struct Packer {
 // symbol emission + packing for one format given the per-frame band-type
 // codes (core94.emit94_np / pack_bits semantics); shared by the full
 // search below and the dcs94_emit_with_codes entry used by the device
-// twin (which sends only the winner's codes back from the TPU)
+// twin (which sends only the winner's codes back from the device)
 static int emit_stream(
     const int32_t* ci, int F, int PMAX,
     const int32_t* wl, const int32_t* sl,
@@ -329,7 +329,7 @@ long long dcs94_encode_search(
 }
 
 // Emit + pack one stream for a single format whose per-frame band-type
-// codes were decided elsewhere (the TPU twin, encoder/device94.py).  The
+// codes were decided elsewhere (the device twin, encoder/device94.py).  The
 // decisions are canonical integers, so this byte-matches the full search's
 // emission for the same codes.  Returns body bytes or a negative error.
 long long dcs94_emit_with_codes(

@@ -7,13 +7,13 @@ its bit offset and absolute band types are known, so the kernel runs a short
 then dequantizes and mixes into per-frame 512-word frame buffers with the
 exact fixed-point accumulate.
 
-TPU design notes:
+Design notes:
 - Per-band → per-slot control expansion uses scatter-diff + cumsum along the
   slot axis (piecewise-constant expansion), avoiding any [F,256,16] tensors.
-- The scan's ONLY gather is one 256-bit window row per THIRTEEN symbols
-  (window_octs/quad_extract); slot controls stream in as scan xs (sliced,
+- The scan's ONLY gather is one window row per group of symbols
+  (window_rows/quad_extract); slot controls stream in as scan xs (sliced,
   not gathered) and codebook entries compute gather-free (cb_entry's
-  boundary-sum).  Everything else is branchless VPU arithmetic.
+  boundary-sum).  Everything else is branchless elementwise arithmetic.
 - The scan length is the maximum symbol count over the frame batch (from the
   prescan), not the worst-case 256.
 
@@ -42,9 +42,8 @@ _MAXW = np.asarray(T.MAX_BIT_WIDTH, dtype=np.int32)          # [7]
 
 # gather-free codebook lookup: _CB_FLAT is piecewise constant (132 runs),
 # so entry(idx) = V0 + sum_k [idx >= b_k] * (V_k - V_{k-1}) — a chain of
-# fused elementwise compare/add ops on the VPU instead of one HBM
-# random-access gather per lane per scan step (~6 ns/lane, and the scan is
-# ~80% of the decode pipeline).  Out-of-range idx (raw-width lanes) sums
+# fused elementwise compare/add ops instead of one random-access gather
+# per lane per scan step.  Out-of-range idx (raw-width lanes) sums
 # every delta and lands on the LAST entry — exactly what the clamped
 # gather produced, so the substitution is bit-identical.
 _chg = np.nonzero(_CB_FLAT[1:] != _CB_FLAT[:-1])[0] + 1
@@ -85,9 +84,8 @@ def window_rows(stream_bytes, nwords):
     One ROW gather yields a 32·nwords-bit window serving several
     max-width (17-bit) symbols after worst-case 31-bit alignment — so a
     scan's window gather runs once per symbols_per_row() symbols instead
-    of once per symbol.  Wider rows trade fewer serial gather steps for
-    more bytes per step; window_rows_for picks by batch size.  The
-    caller pads the byte array with ≥4·nwords trailing bytes.
+    of once per symbol.  The caller pads the byte array with ≥4·nwords
+    trailing bytes.
     """
     b = jnp.concatenate([stream_bytes.astype(jnp.uint32),
                          jnp.full(4 * nwords, 0xFF, jnp.uint32)])
@@ -102,24 +100,11 @@ def window_rows(stream_bytes, nwords):
 
 
 def window_quads(stream_bytes):
-    """128-bit (4-word) windows: 5 max-width symbols per row gather."""
+    """128-bit (4-word) windows: 5 max-width symbols per row gather — the
+    symbol scans' row width.  On the H100 8-word rows (13 symbols per
+    gather) run within a few per cent of it either way between 95k and
+    284k frames and take twice as long to compile (PERF.md)."""
     return window_rows(stream_bytes, 4)
-
-
-def window_octs(stream_bytes):
-    """256-bit (8-word) windows: 13 max-width symbols per row gather
-    (2.6x fewer serial steps than quads, 2x the bytes per step)."""
-    return window_rows(stream_bytes, 8)
-
-
-def window_rows_for(stream_bytes, n_frames):
-    """Pick the row width by flat-batch size (measured crossover ~128k
-    frames): wide 256-bit rows win when the serial window gather is
-    latency-bound (small batches — fewer scan steps dominate); 128-bit
-    rows win when it is throughput-bound (large batches pay for the 2x
-    bytes per row).  See ARCHITECTURE.md."""
-    return window_octs(stream_bytes) if n_frames < (1 << 17) \
-        else window_quads(stream_bytes)
 
 
 def symbols_per_row(rows):
@@ -243,8 +228,7 @@ def _expand(starts, values, n_slots):
     starts: [F, 16] nondecreasing; values: [F, 16].  Bands sharing a start
     (zero-width) telescope so the last one wins, matching band ordering.
     Boundary-sum formulation: out = sum_b [starts_b <= d] * diff_b — 16
-    fused compare/add passes over [F, n_slots], no scatter and no cumsum
-    (the scatter-add + cumsum version measured ~3x slower on chip).
+    fused compare/add passes over [F, n_slots], no scatter and no cumsum.
     """
     diffs = jnp.concatenate(
         [values[:, :1], values[:, 1:] - values[:, :-1]], axis=1)
@@ -329,18 +313,17 @@ def decode_frames94(stream_bytes, start_bit, header, fmt_type, sub_type,
     Returns (position-ordered values [F, 256] in u16 storage,
              (scale [F, 256], total [F])).
 
-    TPU structure: the scan runs over frame-buffer positions, not symbols.
+    Structure: the scan runs over frame-buffer positions, not symbols.
     The per-slot controls stream in as scan xs (sliced, not gathered); a
     "skip" carry bit implements the codebooks' two-zeros-per-codeword case;
     emitted values come out in frame-buffer order, so downstream dequant is
-    elementwise.  The only large gather is the 256-bit row window —
-    ONE row gather per THIRTEEN symbols (window_octs/quad_extract; row
-    gather cost is per row, independent of width).
+    elementwise.  The only large gather is the 128-bit row window —
+    ONE row gather per FIVE symbols (window_quads/quad_extract).
     """
     ctl = band_controls(header, sub_type, fmt_type, band_type, band_type_prev)
     packed, scale, total = slot_controls(ctl)
     F = start_bit.shape[0]
-    quads = window_octs(stream_bytes)
+    quads = window_quads(stream_bytes)
     K = symbols_per_row(quads)
 
     def group(carry, packed_g):            # packed_g: [K, F]
@@ -400,46 +383,47 @@ def dequant_mix(pos_vals, slot_ctl, mix, fb_prev=None, active=None):
     active: [F] bool — frames where this channel actually plays.
 
     Because emissions are already in frame-buffer order, this stage is pure
-    elementwise VPU arithmetic — no scatter, no gather.  Implements the
+    elementwise arithmetic — no scatter, no gather.  Implements the
     exact accumulate + first-sample delta fixup
     (reference: DCSDecoderNative.cpp:2244-2257).
     """
-    scale, total = slot_ctl
-    F, S = pos_vals.shape
-    pos = jnp.arange(S, dtype=jnp.int32).reshape(1, S)
-    valid = pos < total[:, None]
-    if active is not None:
-        valid = valid & active[:, None]
+    with jax.named_scope("dequant_mix"):
+        scale, total = slot_ctl
+        F, S = pos_vals.shape
+        pos = jnp.arange(S, dtype=jnp.int32).reshape(1, S)
+        valid = pos < total[:, None]
+        if active is not None:
+            valid = valid & active[:, None]
 
-    # a zero scaled value makes the whole update an exact pass-through of
-    # the accumulator word, so masking `scaled` is the only gate needed
-    scaled = (s16(pos_vals) * (scale & M16)) & M16
-    scaled = jnp.where(valid, scaled, 0)
-    mixprod = s16(scaled) * (mix[:, None] & M16)
+        # a zero scaled value makes the whole update an exact pass-through of
+        # the accumulator word, so masking `scaled` is the only gate needed
+        scaled = (s16(pos_vals) * (scale & M16)) & M16
+        scaled = jnp.where(valid, scaled, 0)
+        mixprod = s16(scaled) * (mix[:, None] & M16)
 
-    if fb_prev is None:
-        outbuf1 = jnp.zeros((F,), jnp.int32)
-        fb_prev = jnp.zeros((F, 512), jnp.int32)
-        new_val = ((scaled + mixprod) >> 16) & M16
-    else:
-        outbuf1 = fb_prev[:, 1]
-        out_old = fb_prev[:, 1:1 + S]
-        prod = ((s16(out_old) << 16) | scaled) + mixprod
-        new_val = (prod >> 16) & M16
+        if fb_prev is None:
+            outbuf1 = jnp.zeros((F,), jnp.int32)
+            fb_prev = jnp.zeros((F, 512), jnp.int32)
+            new_val = ((scaled + mixprod) >> 16) & M16
+        else:
+            outbuf1 = fb_prev[:, 1]
+            out_old = fb_prev[:, 1:1 + S]
+            prod = ((s16(out_old) << 16) | scaled) + mixprod
+            new_val = (prod >> 16) & M16
 
-    fb = jax.lax.dynamic_update_slice_in_dim(fb_prev, new_val, 1, axis=1)
+        fb = jax.lax.dynamic_update_slice_in_dim(fb_prev, new_val, 1, axis=1)
 
-    # first-sample delta fixup (only where the channel is active)
-    delta = sat16(s16(fb[:, 1]) - s16(outbuf1))
-    fb0 = sat16(s16(delta) + s16(fb[:, 0]))
-    if active is not None:
-        fb0 = jnp.where(active, fb0, fb[:, 0])
-        fb1 = jnp.where(active, outbuf1, fb[:, 1])
-    else:
-        fb1 = outbuf1
-    fb = fb.at[:, 0].set(fb0 & M16)
-    fb = fb.at[:, 1].set(fb1)
-    return fb
+        # first-sample delta fixup (only where the channel is active)
+        delta = sat16(s16(fb[:, 1]) - s16(outbuf1))
+        fb0 = sat16(s16(delta) + s16(fb[:, 0]))
+        if active is not None:
+            fb0 = jnp.where(active, fb0, fb[:, 0])
+            fb1 = jnp.where(active, outbuf1, fb[:, 1])
+        else:
+            fb1 = outbuf1
+        fb = fb.at[:, 0].set(fb0 & M16)
+        fb = fb.at[:, 1].set(fb1)
+        return fb
 
 
 def dequant_mix_dense(dense_vals, slot_ctl, mix, fb_prev=None, active=None):

@@ -228,9 +228,8 @@ def decode93_frames(pool_rows, idx_arrays, mix, fb_prev=None):
     # fixed-width sample extraction with ONE row gather per FRAME: a
     # frame's bands are CONTIGUOUS in the bitstream, so a single
     # window_words_needed-wide row anchored at the frame's base word
-    # serves every band — 16× fewer gathers than one-per-band, which
-    # measured as ~98 of the kernel's 153 ms (gathers scalarize on TPU;
-    # the wider word-select chain in quad_extract is cheap VPU work).
+    # serves every band — 16× fewer gathers than one-per-band (the wider
+    # word-select chain in quad_extract is cheap elementwise work).
     # Non-data bands carry bit_start 0: their (negative→uint32-huge)
     # offsets produce clamped garbage that the `live & kind` mask drops.
     w1 = jnp.maximum(w, 1)
@@ -290,10 +289,9 @@ def decode93_frames(pool_rows, idx_arrays, mix, fb_prev=None):
     # Placement WITHOUT a scatter: every frame-buffer position is written
     # by at most one (band, sample) cell per frame (band output spans
     # advance monotonically and never overlap), so a fused broadcast-
-    # compare-reduce over the 256 cells places the values exactly — and
-    # measures 2.4x faster than the XLA scatter (37 vs 90 ms on the
-    # bench batch; a host-built inverse permutation + take_along and an
-    # old|new packed-word variant both measured slower still).
+    # compare-reduce over the 256 cells places the values exactly.  A
+    # scatter, a host-built inverse permutation + take_along and an
+    # old|new packed-word variant are the alternatives.
     tgtf = jnp.where(write, fbi, 512).reshape(F, 256, 1)
     valf = new_val.reshape(F, 256, 1)
     hit = tgtf == jnp.arange(512, dtype=jnp.int32).reshape(1, 1, 512)

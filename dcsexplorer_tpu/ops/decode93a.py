@@ -6,7 +6,7 @@ one of four selector-chosen codebooks, a two-level scale codeword feeding a
 wrapping scale-code chain, then fixed-width samples where EACH input yields
 TWO outputs via a 256-pair lookup table.
 
-TPU shape: the host walker records per-band bit offsets, widths, and the
+Device shape: the host walker records per-band bit offsets, widths, and the
 resolved 32-bit scale words; every band's output span is static (skipped
 bands still advance by 2×inputs), so the device kernel is pure gathers +
 elementwise math with a static concatenation into the frame buffer — no
@@ -39,7 +39,7 @@ _PAIR_PACKED = _PAIR_PACKED.astype(np.int32)
 # indices [2^w, 2^(w+1)) (index = (1<<w)+raw).  All 14 samples of a band
 # share one width, so the device fetches a band's 64-entry row by a
 # cheap 7-way one-hot and resolves samples with a 64-way one-hot
-# contraction — no per-sample table gather (TPUs scalarize those).
+# contraction — no per-sample table gather.
 _PAIR_BYW = np.zeros((7, 64), dtype=np.int32)
 for _w in range(7):
     _n = 1 << _w
@@ -183,8 +183,8 @@ def decode93a_frames(pool_quads, idx_arrays, mix, fb_prev=None):
     # fixed-width samples: ONE row gather per FRAME serves all 18 bands —
     # the frame's bands are contiguous in the bitstream, so a
     # window_words_needed-wide row anchored at the frame's base word
-    # covers every read (gathers scalarize on TPU; the wider word-select
-    # chain is cheap VPU work).  Skipped bands (bits 0) carry bit_start 0:
+    # covers every read (the wider word-select chain is cheap elementwise
+    # work).  Skipped bands (bits 0) carry bit_start 0:
     # their clamped garbage is dropped by the `live` mask.
     fw = idx_arrays["frame_word"]
     rows = pool_quads[fw][:, None, :]               # [F, 1, NW]

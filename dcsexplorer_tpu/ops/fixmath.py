@@ -1,6 +1,6 @@
 """Vectorized ADSP-2105 fixed-point primitives for the device decode path.
 
-Bit-exact JAX/XLA versions of ``refdec/fixed.py``, designed TPU-first:
+Bit-exact JAX/XLA versions of ``refdec/fixed.py``:
 
 - All values live in **int32 with two's-complement wrapping** (XLA integer
   semantics).  Every quantity the decoder extracts is a bit window below bit

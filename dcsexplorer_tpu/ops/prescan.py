@@ -13,7 +13,7 @@ a C++ fast path lives in native/), producing a tiny per-frame index:
 
 Given the index, every frame of every stream decodes **in parallel** on
 device (ops/band_decode.py): the per-sample Huffman value decode, dequant,
-scale/mix, IFFT, and overlap-add all happen on the TPU.
+scale/mix, IFFT, and overlap-add all happen on the device.
 
 Frame layout semantics being indexed: reference DCSDecoderNative.cpp:1679-2261.
 """

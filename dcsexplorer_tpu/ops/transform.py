@@ -9,8 +9,8 @@ The scalar semantics being vectorized are in ``refdec/transform.py``
 (reference anchors: DCSDecoderNative.cpp:397-576 and :614-813).  All loops are
 static; every iteration's read/write sets are disjoint (or provably
 consistent), so each pass vectorizes into pure gather/compute/scatter over the
-batch — XLA fuses the elementwise chains, and the batch dimension rides the
-VPU lanes.
+batch — XLA fuses the elementwise chains, and the batch dimension is the
+vector axis.
 """
 
 import numpy as np
@@ -227,9 +227,8 @@ def transform94_raw(fb, vol_shift):
 # planar (split re/im) 94 transform — the fast path
 #
 # The interleaved stack/reshape dance in transform94_raw is pure data
-# movement: measured on chip, the six IFFT iterations cost ~19 ms on the
-# bench batch of which ~15 ms is interleaving (the butterfly math alone is
-# ~3 ms).  Storing the complex pairs as two PLANES (re[k] = core[2k],
+# movement, most of the six IFFT iterations' cost (the butterfly math
+# is a small part).  Storing the complex pairs as two PLANES (re[k] = core[2k],
 # im[k] = core[2k+1]) makes every iteration's u/a split a CONTIGUOUS
 # halving and every write a concatenation: zero lane shuffles in the whole
 # iteration phase.  The only gathers left are the initial descending y-pair

@@ -69,7 +69,7 @@ def sharded_flat_sweep(mesh, args):
     """Run the flagship flat-frame sweep sharded over the mesh.
 
     args: FlatSweep.args() with args[0] already expanded to quad windows
-    (ops.band_decode.window_octs).  Returns pcm [N, 240] (u16 storage) with
+    (ops.band_decode.window_quads).  Returns pcm [N, 240] (u16 storage) with
     any padding rows stripped — bit-identical to the single-device
     flat_pipeline (asserted in tests/test_parallel.py).
     """

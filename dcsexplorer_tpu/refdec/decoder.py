@@ -1,12 +1,12 @@
 """Scalar reference decoder — the complete DCS player runtime, bit-exact.
 
 This is the framework's host-side oracle and the semantic specification for
-the TPU pipeline: channels, track byte-code VM, mixing matrix with fades,
+the device pipeline: channels, track byte-code VM, mixing matrix with fades,
 master/channel volume, data-port protocol, boot state machine, and the frame
 decode/transform dispatch.  It mirrors the behavior of the reference's native
 decoder (DCSDecoder/DCSDecoderNative.{h,cpp} + DCSDecoder.cpp) while being
 organized for reuse: the VM/mixer state computed here also drives the batched
-TPU decode path in ``models/``.
+device decode path in ``models/``.
 """
 
 from ..format import tables as T
@@ -433,7 +433,7 @@ class ReferenceDecoder:
             ch.mixing_multiplier = ((m << vol_shift) >> 16) & M16
 
         # decode one frame from every active stream and transform to PCM
-        # (overridable: the TPU pipeline's control tracer records the per-frame
+        # (overridable: the device pipeline's control tracer records the per-frame
         # control vectors here instead of doing the numeric work on host)
         self._decode_and_transform(vol_shift)
 

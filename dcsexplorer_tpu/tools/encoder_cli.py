@@ -1,4 +1,4 @@
-"""dcsencoder-tpu — DCS stream/ROM encoder CLI.
+"""dcsencoder — DCS stream/ROM encoder CLI.
 
 Counterpart of the reference's DCSEncoder program (reference:
 DCSEncoder/Main.cpp): transcode audio files into DCS streams (raw 'DCSa'
@@ -18,8 +18,8 @@ import numpy as np
 
 def build_parser():
     p = argparse.ArgumentParser(
-        prog="dcsencoder-tpu",
-        description="DCS audio encoder / ROM compiler (TPU-native framework)")
+        prog="dcsencoder",
+        description="DCS audio encoder / ROM compiler")
     from .. import __version__
     p.add_argument("--version", action="version",
                    version=f"%(prog)s {__version__}")

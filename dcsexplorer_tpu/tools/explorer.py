@@ -1,10 +1,10 @@
-"""dcsexplorer-tpu — DCS ROM explorer CLI.
+"""dcsexplorer — DCS ROM explorer CLI.
 
 The framework's counterpart to the reference's DCSExplorer program
 (reference: DCSExplorer/DCSExplorer.cpp): ROM loading and introspection,
 track/stream listings, program decompilation, WAV / raw-.dcs extraction,
-autoplay sweeps, and a lockstep validation mode (TPU pipeline vs. the scalar
-reference decoder).
+autoplay sweeps, and a lockstep validation mode (device pipeline vs. the
+scalar reference decoder).
 
 Usage:
   python -m dcsexplorer_tpu.tools.explorer ROM.zip [options]
@@ -19,8 +19,8 @@ import numpy as np
 
 def build_parser():
     p = argparse.ArgumentParser(
-        prog="dcsexplorer-tpu",
-        description="DCS audio ROM explorer (TPU-native framework)")
+        prog="dcsexplorer",
+        description="DCS audio ROM explorer (JAX device pipeline)")
     from .. import __version__
     p.add_argument("--version", action="version",
                    version=f"%(prog)s {__version__}")
@@ -53,7 +53,7 @@ def build_parser():
                    help="disassemble U2 (RANGE as start:end word addrs, "
                         "default 0:0x2000)")
     p.add_argument("--validate", nargs="?", const=True, metavar="LOG",
-                   help="lockstep-validate the TPU pipeline against the "
+                   help="lockstep-validate the device pipeline against the "
                         "scalar reference decoder over an autoplay sweep; "
                         "optionally write the report to LOG")
     p.add_argument("--ignore-checksum-errors", action="store_true",
@@ -61,8 +61,8 @@ def build_parser():
     p.add_argument("--silent", action="store_true",
                    help="accepted for reference-CLI compatibility (this "
                         "tool always renders to files, never a device)")
-    p.add_argument("--backend", default="tpu",
-                   help="decode backend for extraction/autoplay: 'tpu' "
+    p.add_argument("--backend", default="device",
+                   help="decode backend for extraction/autoplay: 'device' "
                         "(batched device pipeline) or any registered "
                         "decoder by name/prefix — 'native' (scalar), "
                         "'emulator-strict' (runs original ROM firmware on "
@@ -184,7 +184,7 @@ def _decode_track(rs, track, vol, backend, max_frames, bank=None):
     n = min((ti.time or 40) + 4, max_frames)
     events = {0: (lambda dec: (dec.write_data_port((track >> 8) & 0xFF),
                                dec.write_data_port(track & 0xFF)))}
-    if backend == "tpu":
+    if backend == "device":
         pcm, _ = romplay.play_session(rs, events, n, default_volume=vol,
                                       bank=bank)
         return pcm
@@ -233,7 +233,7 @@ def cmd_extract_tracks(rs, prefix, vol, backend, max_frames):
     from ..models import romplay
     from ..rom import tracks as rtracks
     from ..utils import audioio
-    bank = romplay.build_rom_bank(rs) if backend == "tpu" else None
+    bank = romplay.build_rom_bank(rs) if backend == "device" else None
     for t in range(rs.n_tracks):
         ti = rtracks.get_track_info(rs, rs.os_version, t)
         if ti is None or ti.type != 1 or ti.time == 0:
@@ -299,7 +299,7 @@ def cmd_interactive(rs, out_path, vol, secs_per_cmd, backend="native"):
     from ..refdec import decoder as rd
     from ..refdec import registry
     from ..utils.player import MemorySink
-    if backend in ("tpu", "scalar"):
+    if backend in ("device", "scalar"):
         backend = "native"      # interactive sessions run a live decoder
     dec = registry.create(backend)
     dec.default_volume = vol
@@ -307,7 +307,7 @@ def cmd_interactive(rs, out_path, vol, secs_per_cmd, backend="native"):
     dec.soft_boot()
     sink = MemorySink()
     n = int(secs_per_cmd * 31250)
-    print("dcsexplorer-tpu interactive: enter hex track (0001), vNN, quit")
+    print("dcsexplorer interactive: enter hex track (0001), vNN, quit")
     for line in sys.stdin:
         cmd = line.strip().lower()
         if cmd in ("q", "quit", "exit"):
@@ -364,7 +364,7 @@ HISTORY_DEPTH = 8          # recent data-port commands shown per dump
 
 
 def cmd_validate(rs, vol, max_frames, log_path=None):
-    """Lockstep: TPU pipeline vs scalar reference over an autoplay sweep.
+    """Lockstep: device pipeline vs scalar reference over an autoplay sweep.
 
     Mirrors the reference's --validate diagnostics (DCSExplorer.cpp:
     1338-1481 per-frame compare with both decoders' sample dumps and the
@@ -408,8 +408,8 @@ def cmd_validate(rs, vol, max_frames, log_path=None):
 
     # DCS->host data-port history must match as well (reference compares
     # both PCM and the data-port bytes, DCSExplorer.cpp:1440-1481)
-    ref_rx, tpu_rx = list(dec.host.rx), list(tracer.host.rx)
-    port_ok = ref_rx == tpu_rx
+    ref_rx, dev_rx = list(dec.host.rx), list(tracer.host.rx)
+    port_ok = ref_rx == dev_rx
 
     summary = [f"Samples compared: {golden.size} ({n} frames)",
                f"Sample mismatches: {mism.size} in {frames_bad.size} frames"
@@ -439,19 +439,19 @@ def cmd_validate(rs, vol, max_frames, log_path=None):
                               + " ".join(f"{b:02X}" for b in hb)
                               + f"  ; {meaning}")
         detail += _hex_frame("scalar", golden[s:e])
-        detail += _hex_frame("tpu   ", pcm[s:e])
+        detail += _hex_frame("device", pcm[s:e])
     if frames_bad.size > MAX_FRAME_DUMPS:
         detail.append(f"... {frames_bad.size - MAX_FRAME_DUMPS} more "
                       f"differing frames (dumps capped)")
     if not port_ok:
-        k = next((i for i, (a, b) in enumerate(zip(ref_rx, tpu_rx))
-                  if a != b), min(len(ref_rx), len(tpu_rx)))
+        k = next((i for i, (a, b) in enumerate(zip(ref_rx, dev_rx))
+                  if a != b), min(len(ref_rx), len(dev_rx)))
         lo = max(0, k - 8)
         detail.append(f"Data port diverges at byte {k}:")
         detail.append("  scalar: " + " ".join(
             f"{b:02X}" for b in ref_rx[lo:k + 8]))
-        detail.append("  tpu   : " + " ".join(
-            f"{b:02X}" for b in tpu_rx[lo:k + 8]))
+        detail.append("  device: " + " ".join(
+            f"{b:02X}" for b in dev_rx[lo:k + 8]))
 
     verdict = "Validation FAILED" if failed else "Validation Succeeded"
     lines = summary + detail + [verdict]
@@ -471,7 +471,7 @@ def cmd_validate(rs, vol, max_frames, log_path=None):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.backend != "tpu":
+    if args.backend != "device":
         # validate the backend selection up front (reference behavior:
         # DCSExplorer.cpp:458-537 — '?' or a bad name lists the choices)
         from ..refdec import registry
@@ -482,7 +482,7 @@ def main(argv=None):
             args.backend = "?"
         if args.backend == "?":
             print("Available decoders:")
-            print(f"    {'tpu':<16} batched TPU device pipeline (default)")
+            print(f"    {'device':<16} batched JAX device pipeline (default)")
             for r in registry.registrations():
                 print(f"    {r.name:<16} {r.description}")
             return 0
@@ -500,6 +500,9 @@ def main(argv=None):
     decode_requested = bool(args.extract_tracks or args.extract_streams
                             or args.autoplay or args.interactive
                             or args.validate)
+    if decode_requested:
+        from ..utils import compile_cache
+        compile_cache.enable()
     if status != 1 and decode_requested and not args.ignore_checksum_errors:
         print(f"error: ROM failed its POST checks (code {status}); use "
               "--ignore-checksum-errors to decode anyway", file=sys.stderr)

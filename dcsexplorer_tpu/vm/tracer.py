@@ -5,7 +5,7 @@ The VM implementation itself lives inside the runtime decoder
 the boot state machine) because it shares per-channel state with stream
 playback, exactly as in the reference (DCSDecoderNative.cpp:848-1228).
 
-This module is the host half of the TPU pipeline split (SURVEY.md §7): run
+This module is the host half of the device pipeline split (SURVEY.md §7): run
 the branchy, pointer-chasing runtime — commands, track programs, fades,
 volume, stream lifecycle — on the host with every per-sample computation
 skipped, and record per-frame control vectors (which stream frame plays on

@@ -2,7 +2,7 @@
 // /root/reference (read-only, compiled out-of-tree at test time).  This is not
 // part of the framework; it exists solely so the test suite can obtain
 // bit-exact golden vectors (encoded DCS streams and decoded PCM) to validate
-// the from-scratch TPU-native implementation against.
+// the from-scratch JAX implementation against.
 //
 // Reference usage mirrored here: DCSEncoderTester/EncoderTester.cpp:73-140
 // (standalone decoder + LoadAudioStream), DCSEncoder/DCSEncoder.h:26-34

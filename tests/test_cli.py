@@ -92,7 +92,7 @@ def test_validate_diagnostics_on_forced_mismatch(rom_zip, tmp_path, monkeypatch)
     assert "frames 3..5" in text and "frames 9..9" in text
     # both decoders' sample dumps for the differing frames
     assert "Frame 3:" in text
-    assert "scalar[  0]" in text and "tpu   [  0]" in text
+    assert "scalar[  0]" in text and "device[  0]" in text
     # the repro command history
     assert "recent data-port commands" in text
     assert "play track $" in text

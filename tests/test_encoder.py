@@ -147,7 +147,7 @@ def test_encode_via_rate_conversion():
 
 def test_all_formats_cross_decoder_and_device():
     """Every emitted stream format — {type 0,1} × {subtype 0,3} — must
-    decode bit-exactly in the compiled reference decoder AND in the TPU
+    decode bit-exactly in the compiled reference decoder AND in the device
     flat-sweep pipeline."""
     if oracle.get_lib() is None:
         pytest.skip("reference oracle unavailable")
@@ -180,7 +180,7 @@ def test_all_formats_cross_decoder_and_device():
 
 def test_93_encoder_roundtrip_and_cross_decoder():
     """The 1993-format encoder's streams must decode identically in the
-    scalar decoder, the compiled reference decoder, and the TPU 93 kernel,
+    scalar decoder, the compiled reference decoder, and the device 93 kernel,
     at reasonable quality for both major types."""
     from dcsexplorer_tpu.refdec.decoder import OS93A, OS93B
 
@@ -214,7 +214,7 @@ def test_93_encoder_roundtrip_and_cross_decoder():
 
 
 def test_93_encoder_device_kernel():
-    """93-encoded streams decode bit-exactly through the TPU 93 kernel."""
+    """93-encoded streams decode bit-exactly through the device 93 kernel."""
     if oracle.get_lib() is None:
         pytest.skip("reference oracle unavailable")
     from .test_format93 import _device_decode93

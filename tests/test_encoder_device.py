@@ -88,7 +88,7 @@ def test_device_single_stream():
 
 # ----------------------------------------------------------------------
 # The PCM-planes contract (encoder.py "integer-canonical analysis" module
-# comment): the device's int8-plane MXU matmul analysis (_analyze_device)
+# comment): the device's int8-plane matmul analysis (_analyze_device)
 # must be bit-identical to the host's float64-BLAS evaluation
 # (analyze_frames_canonical) for EVERY int16 input — and the end-to-end
 # encode_files_device path must therefore be byte-identical to encode_files.
@@ -163,3 +163,35 @@ def test_encode_files_device_end_to_end():
     got = enc.encode_files_device(jobs, params)
     for i, (w, g) in enumerate(zip(want, got)):
         assert g == w, f"device path diverged end-to-end on job {i}"
+
+
+@pytest.mark.parametrize("matrix", ["production", "full_range"])
+def test_analyze_device_int8_planes_exact_on_extremes(monkeypatch, matrix):
+    """The all-int8 plane decomposition (biased low bytes, row/column-sum
+    corrections) is exact for ±32768 PCM against any int16 matrix,
+    including one that spans the full int16 range."""
+    import jax
+    from dcsexplorer_tpu.encoder import encoder as enc
+
+    if matrix == "full_range":
+        rng = np.random.default_rng(5)
+        fq = rng.integers(-32768, 32768, size=(256, 255)).astype(np.int16)
+        fq[0, :] = -32768
+        fq[1, :] = 32767
+        fq[:, 0] = -32768
+        monkeypatch.setattr(enc, "_FQ", fq)
+    n = 240 * 4 + 16
+    pcms = [np.full(n, -32768, np.int16), np.full(n, 32767, np.int16),
+            np.where(np.arange(n) % 3 == 0, -32768, 32767).astype(np.int16),
+            np.random.default_rng(9).integers(-32768, 32768, size=n)
+            .astype(np.int16)]
+    fmax = max(enc.frames_from_pcm_raw(p).shape[0] for p in pcms)
+    pad = np.zeros((len(pcms), fmax * 240 + 240), np.int16)
+    for i, p in enumerate(pcms):
+        pad[i, :p.size] = p
+    dev_ci = np.asarray(jax.jit(lambda x: d94._analyze_device(x, fmax))(pad))
+    for i, p in enumerate(pcms):
+        frames = enc.frames_from_pcm_raw(p)
+        np.testing.assert_array_equal(
+            dev_ci[i, :frames.shape[0]], enc.analyze_frames_canonical(frames),
+            err_msg=f"{matrix} matrix, input {i}")

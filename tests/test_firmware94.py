@@ -3,7 +3,7 @@
 Each test loads the assembled firmware into a bare ADSP-2105 core with the
 DCS-93 board memory map stubbed in, calls one firmware routine directly,
 and compares the result with the scalar reference decoder (refdec/) —
-the same oracle the TPU kernels are validated against.  The full
+the same oracle the device kernels are validated against.  The full
 two-backend integration (compiler ROM → emulator backend → PCM parity)
 lives in tests/test_emu_decode.py.
 """

@@ -127,3 +127,17 @@ def test_native_index93a_matches_python():
             for fld in ("bits", "bit_start", "scale32", "end_bit"):
                 assert np.array_equal(getattr(got, fld), getattr(ref, fld)), \
                     f"93a index field {fld} differs"
+
+
+def test_library_path_is_keyed_on_the_host(monkeypatch):
+    """A library built for one CPU or compiler is never loaded on another:
+    its file name changes with either, and the loaded library is the one
+    keyed for this host."""
+    here = native.lib_path()
+    monkeypatch.setattr(native, "_host_cpu", lambda: "model name : other")
+    elsewhere = native.lib_path()
+    assert here != elsewhere
+    assert os.path.basename(here).startswith("libdcsnative-")
+    monkeypatch.undo()
+    lib = native.get_lib()
+    assert lib is not None and lib._name == native.lib_path()

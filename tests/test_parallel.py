@@ -76,7 +76,7 @@ def test_sharded_flat_sweep_bit_exact():
     single = flatsweep.run_flat(sw)
 
     args = list(sw.args())
-    args[0] = bd.window_octs(args[0])
+    args[0] = bd.window_quads(args[0])
     mesh = sweep.make_flat_mesh(jax.devices()[:8])
     pcm = np.asarray(sweep.sharded_flat_sweep(mesh, tuple(args)))
     sharded = (((pcm & 0xFFFF) ^ 0x8000) - 0x8000).astype(np.int16).reshape(-1)

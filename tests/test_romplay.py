@@ -74,7 +74,7 @@ def test_device_autoplay_matches_scalar():
 
 def test_93_rom_autoplay_device_lockstep():
     """A 93-family ROM (streams encoded by this framework's 93 encoder)
-    plays through the TPU session path bit-exactly vs the scalar decoder."""
+    plays through the device session path bit-exactly vs the scalar decoder."""
     import numpy as np
     from dcsexplorer_tpu.compiler import romgen
     from dcsexplorer_tpu.encoder import encoder as enc

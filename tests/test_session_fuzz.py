@@ -1,4 +1,4 @@
-"""Randomized long-session lockstep fuzz: the TPU session path must match
+"""Randomized long-session lockstep fuzz: the device session path must match
 the scalar runtime bit-for-bit over hundreds of frames of random track
 commands, master/channel volume changes, and overlapping voices."""
 

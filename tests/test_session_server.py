@@ -8,6 +8,7 @@ reconstruction, vmapped decode).
 """
 
 import numpy as np
+import pytest
 
 from dcsexplorer_tpu.models import romplay
 from dcsexplorer_tpu.rom import zipload
@@ -67,6 +68,27 @@ def test_session_server_matches_play_session():
             assert np.array_equal(outs[k][b], golden), (k, b)
             some_signal |= bool(np.abs(golden).max() > 0)
     assert some_signal
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_session_server_serves_more_batches_than_depth(depth):
+    """Every batch of a stream longer than the pipeline depth comes out,
+    in order, each equal to per-session play_session."""
+    rs = _rom_set()
+    S, T = 2, 40
+    bank = romplay.build_rom_bank(rs)
+    batches = [[_byte_events(k * S + b) for b in range(S)]
+               for k in range(depth + 3)]
+
+    with romplay.SessionServer(rs, n_sessions=S, n_frames=T, bank=bank,
+                               depth=depth) as srv:
+        outs = list(srv.serve(iter(batches)))
+    assert len(outs) == len(batches)
+    for k, batch in enumerate(batches):
+        for b, byte_ev in enumerate(batch):
+            golden, _ = romplay.play_session(
+                rs, _callable_events(byte_ev), T, bank=bank)
+            assert np.array_equal(outs[k][b], golden), (depth, k, b)
 
 
 def test_session_server_segment_overflow_retry():
